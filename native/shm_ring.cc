@@ -14,7 +14,7 @@
 // pairs order the payload memcpy against the index publication.
 //
 // Build: g++ -O2 -shared -fPIC -o libshmring.so shm_ring.cc -lrt
-// (driven by corbslam_tpu/collab/shm_ring.py at first import).
+// (driven by corbslam/collab/shm_ring.py at first import).
 
 #include <algorithm>
 #include <atomic>

@@ -4,8 +4,8 @@ truth: same math, tile-native layout (see ba_dense module docstring)."""
 import jax.numpy as jnp
 import numpy as np
 
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.optim import ba, ba_dense
+from corbslam.geometry import camera, se3
+from corbslam.optim import ba, ba_dense
 
 from test_optim import CAM, make_ba_scene, mean_reproj_err
 
@@ -129,8 +129,8 @@ class TestBADense:
     def test_problem_from_map_counts(self, rng):
         """problem_from_map compacts valid observations per keyframe and
         drops none when the budget covers them."""
-        from corbslam_tpu.config import SlamConfig, CapacityConfig
-        from corbslam_tpu.mapstate import mapstate as ms
+        from corbslam.config import SlamConfig, CapacityConfig
+        from corbslam.mapstate import mapstate as ms
 
         cfg = SlamConfig(capacity=CapacityConfig(
             max_keyframes=8, max_map_points=64, max_features=16))

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.config import CapacityConfig, OrbConfig, SlamConfig
-from corbslam_tpu.collab import fusion_ops, wire
-from corbslam_tpu.collab.client_cache import ClientCache
-from corbslam_tpu.collab.server import MapFusionServer
-from corbslam_tpu.collab.transport import InProcTransport
-from corbslam_tpu.geometry import camera, se3, sim3
-from corbslam_tpu.mapstate import mapstate as ms
-from corbslam_tpu.place import vocab as vocab_mod
+from corbslam.config import CapacityConfig, OrbConfig, SlamConfig
+from corbslam.collab import fusion_ops, wire
+from corbslam.collab.client_cache import ClientCache
+from corbslam.collab.server import MapFusionServer
+from corbslam.collab.transport import InProcTransport
+from corbslam.geometry import camera, se3, sim3
+from corbslam.mapstate import mapstate as ms
+from corbslam.place import vocab as vocab_mod
 
 CAM = camera.Intrinsics.create(
     fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240
@@ -161,7 +161,7 @@ class TestTransformMap:
         m2 = fusion_ops.transform_map(m, *S)
         # A landmark observed by a keyframe must project to the same pixel
         # after the whole-map transform.
-        from corbslam_tpu.geometry import camera as cam_mod
+        from corbslam.geometry import camera as cam_mod
         mp_idx = np.asarray(m.kf.mp_idx[0])
         f = np.nonzero(mp_idx >= 0)[0][0]
         p = m.mp.pos[mp_idx[f]]
@@ -354,7 +354,7 @@ class TestTwoClientFusion:
         and a new landmark allocated in a RECLAIMED row gets a fresh gid
         (uid-based identity) instead of colliding with the server's
         existing one."""
-        from corbslam_tpu.mapstate import mapstate as ms
+        from corbslam.mapstate import mapstate as ms
 
         transport, server, c1, c2 = rig
         assert c1.uplink_step()

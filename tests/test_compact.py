@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.config import CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig
-from corbslam_tpu.mapstate import mapstate as ms
+from corbslam.config import CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig
+from corbslam.mapstate import mapstate as ms
 
 
 def _toy_map(rng, n_kf=10, n_mp=40, cap_kf=16, cap_mp=64, F=8):
@@ -82,9 +82,9 @@ class TestCompactionEndToEnd:
     def test_tracker_compacts_and_keeps_tracking(self, rng):
         """Force the cursor near a tiny capacity; the tracker must repack
         (reclaiming culled rows) and keep tracking without corruption."""
-        from corbslam_tpu.frontend.tracking import StereoTracker, TrackState
-        from corbslam_tpu.geometry import camera, se3
-        from corbslam_tpu.io import synthetic
+        from corbslam.frontend.tracking import StereoTracker, TrackState
+        from corbslam.geometry import camera, se3
+        from corbslam.io import synthetic
 
         cam = camera.Intrinsics.create(
             fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0,
@@ -127,13 +127,13 @@ class TestCollabCompactionE2E:
         the on_compact hook, and the uplink must stay consistent (unique
         gids, no dropped entities) — §5.7 eviction composed with the
         collaboration layer, which round 3 explicitly disabled."""
-        from corbslam_tpu import system as system_mod
-        from corbslam_tpu.collab.server import MapFusionServer
-        from corbslam_tpu.collab.transport import InProcTransport
-        from corbslam_tpu.frontend import frame as frame_mod
-        from corbslam_tpu.geometry import camera, se3
-        from corbslam_tpu.io import synthetic
-        from corbslam_tpu.place import vocab as vocab_mod
+        from corbslam import system as system_mod
+        from corbslam.collab.server import MapFusionServer
+        from corbslam.collab.transport import InProcTransport
+        from corbslam.frontend import frame as frame_mod
+        from corbslam.geometry import camera, se3
+        from corbslam.io import synthetic
+        from corbslam.place import vocab as vocab_mod
 
         cam = camera.Intrinsics.create(
             fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0,

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from corbslam_tpu.ops import descriptors as D
+from corbslam.ops import descriptors as D
 
 
 def np_hamming(a, b):

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.config import OrbConfig
-from corbslam_tpu.io import synthetic
-from corbslam_tpu.ops import brief, descriptors, fast, orb, pyramid
+from corbslam.config import OrbConfig
+from corbslam.io import synthetic
+from corbslam.ops import brief, descriptors, fast, orb, pyramid
 
 
 class TestPyramid:
@@ -141,3 +141,104 @@ class TestFullExtract:
         # Most matches agree with the global shift (inlier ratio)
         inliers = (np.abs(delta - [6, 10]) < 2).all(axis=1)
         assert inliers.mean() > 0.7
+
+
+def _np_bilinear(img, out_hw):
+    """Half-pixel bilinear resize, one output pixel at a time (float64)."""
+    h_in, w_in = img.shape
+    h, w = out_hw
+    out = np.zeros((h, w))
+    for i in range(h):
+        y = min(max((i + 0.5) * h_in / h - 0.5, 0.0), h_in - 1)
+        y0 = int(np.floor(y)); y1 = min(y0 + 1, h_in - 1); fy = y - y0
+        for j in range(w):
+            x = min(max((j + 0.5) * w_in / w - 0.5, 0.0), w_in - 1)
+            x0 = int(np.floor(x)); x1 = min(x0 + 1, w_in - 1); fx = x - x0
+            top = (1 - fx) * img[y0, x0] + fx * img[y0, x1]
+            bot = (1 - fx) * img[y1, x0] + fx * img[y1, x1]
+            out[i, j] = (1 - fy) * top + fy * bot
+    return out
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((48, 70), (40, 58)), ((31, 45), (26, 37))])
+def test_resize_bilinear_matches_numpy(in_hw, out_hw):
+    img = np.random.default_rng(1).uniform(0, 255, in_hw).astype(np.float32)
+    got = np.asarray(pyramid.resize_bilinear(jnp.asarray(img), out_hw))
+    np.testing.assert_allclose(got, _np_bilinear(img.astype(np.float64), out_hw),
+                               atol=1e-3)
+
+
+def _keypoints(levels, n, seed):
+    """n random in-bounds (octave, y, x) keypoints over the given levels."""
+    rng = np.random.default_rng(seed)
+    octv = rng.integers(0, len(levels), n)
+    yx = np.stack([
+        [rng.integers(0, levels[o].shape[0]), rng.integers(0, levels[o].shape[1])]
+        for o in octv])
+    return octv.astype(np.int32), yx.astype(np.int32)
+
+
+def test_patches_match_numpy_slicing():
+    from corbslam.ops import patches
+
+    rng = np.random.default_rng(2)
+    levels = [rng.uniform(0, 255, hw).astype(np.float32)
+              for hw in [(60, 90), (50, 75), (42, 63)]]
+    octv, yx = _keypoints(levels, 40, 3)
+    fl = patches.flatten_levels([jnp.asarray(l) for l in levels])
+    base, stride = patches.keypoint_index(fl, jnp.asarray(octv), jnp.asarray(yx))
+    got = np.asarray(patches.gather_patches(fl, base, stride, 32))
+    P = patches.PAD
+    for k in range(len(octv)):
+        pad = np.pad(levels[octv[k]], P)
+        y, x = yx[k] + P
+        np.testing.assert_array_equal(got[k], pad[y - 16:y + 16, x - 16:x + 16])
+
+
+def _np_brief_selection(patch, n_bins):
+    """[patch*patch, n_bins*512] one-hot steered-BRIEF selection matrix:
+    column (b*512 + 2*i + e) selects pattern pair i, endpoint e, rotated by
+    2*pi*b/n_bins, rounded and clipped to the patch interior."""
+    c = patch // 2
+    pat = brief.BRIEF_PATTERN.astype(np.float32)
+    py, px = pat[..., 0], pat[..., 1]
+    sel = np.zeros((patch * patch, n_bins * 512))
+    lim = patch // 2 - 1
+    for b in range(n_bins):
+        th = 2.0 * np.pi * b / n_bins
+        cth, sth = np.cos(th), np.sin(th)
+        rx = np.clip(np.round(px * cth - py * sth), -lim, lim).astype(np.int64)
+        ry = np.clip(np.round(px * sth + py * cth), -lim, lim).astype(np.int64)
+        lin = (c + ry) * patch + (c + rx)
+        cols = b * 512 + np.arange(256)[:, None] * 2 + np.arange(2)[None, :]
+        sel[lin.reshape(-1), cols.reshape(-1)] = 1.0
+    return sel
+
+
+def test_brief_gather_matches_selection_reference():
+    """The table gather reproduces the full-precision selection matmul bit
+    for bit, so descriptors (and the vocabulary trained on them) keep their
+    meaning."""
+    from corbslam.ops import patches
+
+    rng = np.random.default_rng(4)
+    levels = [pyramid.gaussian_blur(jnp.asarray(
+        synthetic.random_texture(hw[0], hw[1], seed=i))) for i, hw in
+        enumerate([(80, 120), (66, 100)])]
+    octv, yx = _keypoints(levels, 64, 5)
+    angle = rng.uniform(-np.pi, np.pi, len(octv)).astype(np.float32)
+    fl = patches.flatten_levels(levels)
+    base, stride = patches.keypoint_index(fl, jnp.asarray(octv), jnp.asarray(yx))
+    got = np.asarray(brief.brief_from_levels(fl, base, stride, jnp.asarray(angle)))
+
+    P, B = 2 * (brief.BRIEF_LIM + 1), brief.N_ANGLE_BINS
+    sel = _np_brief_selection(P, B)
+    bins = np.asarray(brief.angle_bin(jnp.asarray(angle)))
+    for k in range(len(octv)):
+        pad = np.pad(np.asarray(levels[octv[k]], np.float64), patches.PAD)
+        y, x = yx[k] + patches.PAD
+        patch = pad[y - P // 2:y + P // 2, x - P // 2:x + P // 2].reshape(-1)
+        samp = (patch @ sel).reshape(B, 256, 2)[bins[k]]
+        bits = (samp[:, 0] < samp[:, 1]).astype(np.uint8)
+        want = np.packbits(bits, bitorder="little")
+        np.testing.assert_array_equal(got[k], want)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.geometry import camera, se3, sim3
+from corbslam.geometry import camera, se3, sim3
 
 
 def random_rotations(rng, n):

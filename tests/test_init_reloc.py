@@ -8,15 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.config import CapacityConfig, OrbConfig, SlamConfig
-from corbslam_tpu.frontend import frame as frame_mod
-from corbslam_tpu.frontend import reloc
-from corbslam_tpu.geometry import camera, linalg3, se3
-from corbslam_tpu.mapping import triangulation
-from corbslam_tpu.mapstate import mapstate as ms
-from corbslam_tpu.place import database as db_mod
-from corbslam_tpu.place import vocab as vocab_mod
-from corbslam_tpu.solvers import initializer
+from corbslam.config import CapacityConfig, OrbConfig, SlamConfig
+from corbslam.frontend import frame as frame_mod
+from corbslam.frontend import reloc
+from corbslam.geometry import camera, linalg3, se3
+from corbslam.mapping import triangulation
+from corbslam.mapstate import mapstate as ms
+from corbslam.place import database as db_mod
+from corbslam.place import vocab as vocab_mod
+from corbslam.solvers import initializer
 
 CAM = camera.Intrinsics.create(
     fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240

@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from corbslam_tpu.config import CapacityConfig, OrbConfig, SlamConfig
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.loop import gba as gba_mod
-from corbslam_tpu.loop import loop_closing as lc
-from corbslam_tpu.mapstate import mapstate as ms
+from corbslam.config import CapacityConfig, OrbConfig, SlamConfig
+from corbslam.geometry import camera, se3
+from corbslam.loop import gba as gba_mod
+from corbslam.loop import loop_closing as lc
+from corbslam.mapstate import mapstate as ms
 
 CAM = camera.Intrinsics.create(
     fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240
@@ -317,7 +317,7 @@ class TestGlobalBA:
         runner.launch(m)
         m2 = runner.try_merge(m)
         prob1 = gba_mod.build_global_problem(m2, CFG)
-        from corbslam_tpu.optim import ba
+        from corbslam.optim import ba
 
         def cost(p):
             res = ba.optimize(CAM, p, n_iters=1, cg_iters=1, huber_iters=0)

@@ -14,15 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu import system as system_mod
-from corbslam_tpu.config import (
+from corbslam import system as system_mod
+from corbslam.config import (
     CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
-from corbslam_tpu.frontend import frame as frame_mod
-from corbslam_tpu.frontend.tracking import TrackState
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.io import synthetic, trajectory
-from corbslam_tpu.place import vocab as vocab_mod
+from corbslam.frontend import frame as frame_mod
+from corbslam.frontend.tracking import TrackState
+from corbslam.geometry import camera, se3
+from corbslam.io import synthetic, trajectory
+from corbslam.place import vocab as vocab_mod
 
 CAM = camera.Intrinsics.create(
     fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=320.0 * 0.5,

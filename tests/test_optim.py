@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.optim import ba, pose_opt, reproj
-from corbslam_tpu.optim.smallmat import chol_solve_unrolled, inv_spd_unrolled
+from corbslam.geometry import camera, se3
+from corbslam.optim import ba, pose_opt, reproj
+from corbslam.optim.smallmat import chol_solve_unrolled, inv_spd_unrolled
 
 CAM = camera.Intrinsics.create(
     fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,

@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.optim import ba
-from corbslam_tpu.parallel import distributed_ba
+from corbslam.geometry import camera, se3
+from corbslam.optim import ba
+from corbslam.parallel import distributed_ba
 
 CAM = camera.Intrinsics.create(
     fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
@@ -118,7 +118,7 @@ class TestDistributedDenseBA:
         bit-exact: the tolerance-gated CG exit can stop one iteration
         apart between the two compiled programs when the residual sits at
         the threshold, so allow ~1e-3."""
-        from corbslam_tpu.optim import ba_dense
+        from corbslam.optim import ba_dense
 
         _, dense = self._dense_problem(rng)
         mesh1 = Mesh(np.asarray(jax.devices())[:1], (distributed_ba.AXIS,))
@@ -133,7 +133,7 @@ class TestDistributedDenseBA:
         """8-way sharding changes f32 reduction order, which CG amplifies
         into different (equally valid) trajectories — so compare the
         OPTIMA, not the iterates: final costs must agree closely."""
-        from corbslam_tpu.optim import ba_dense
+        from corbslam.optim import ba_dense
 
         _, dense = self._dense_problem(rng)
         res_s = distributed_ba.optimize_dense(
@@ -156,7 +156,7 @@ class TestDistributedDenseBA:
         """GlobalBARunner with a mesh runs the sharded entry and still
         honors the chunked-abort protocol (LoopClosing.cc:413-428)."""
         import test_loop as tl
-        from corbslam_tpu.loop import gba as gba_mod
+        from corbslam.loop import gba as gba_mod
 
         m, gt, est, kf_c, kf_q = tl.build_loop_map(rng, drift_per_kf=0.01)
         runner = gba_mod.GlobalBARunner(

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.config import (
+from corbslam.config import (
     CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
-from corbslam_tpu.frontend.tracking import StereoTracker, TrackState
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.io import synthetic, trajectory
-from corbslam_tpu.ops import stereo
+from corbslam.frontend.tracking import StereoTracker, TrackState
+from corbslam.geometry import camera, se3
+from corbslam.io import synthetic, trajectory
+from corbslam.ops import stereo
 
 # Small camera + config so CPU tests stay fast.
 CAM = camera.Intrinsics.create(
@@ -54,7 +54,7 @@ def gt_trajectory(n=20, dx=0.12, dyaw=0.004, tilt_pitch=0.35):
 
 class TestStereoMatcherE2E:
     def test_disparity_matches_ground_truth(self, world):
-        from corbslam_tpu.frontend import frame as frame_mod
+        from corbslam.frontend import frame as frame_mod
 
         Tcw = se3.identity()
         img_l, img_r = world.render_stereo(Tcw)
@@ -188,7 +188,7 @@ class TestMonocularE2E:
 
     def test_ate_similarity_aligned(self, run):
         tracker, gt = run
-        from corbslam_tpu.geometry import se3 as se3m
+        from corbslam.geometry import se3 as se3m
         # Only frames tracked OK count (mono needs several frames of
         # parallax before the two-view bootstrap fires; pre-init poses are
         # placeholders).
@@ -309,8 +309,8 @@ class TestLostEarlyHardReset:
 class TestTwoFramePerDispatch:
     """frames_per_dispatch=2 (track_ops.track_frame_stereo2): two frames
     chained in one program must reproduce the single-dispatch pipeline's
-    tracking quality — the dispatch-halving mode the flagship bench runs
-    at sick relay RTT."""
+    tracking quality (the dispatch-halving mode, config.py
+    TrackingConfig.frames_per_dispatch)."""
 
     def test_matches_single_dispatch_quality(self, world):
         import dataclasses

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.ops import descriptors as D
-from corbslam_tpu.place import vocab as V
-from corbslam_tpu.place import database as DB
+from corbslam.ops import descriptors as D
+from corbslam.place import vocab as V
+from corbslam.place import database as DB
 
 
 def corrupt(rng, desc, n_bits):
@@ -66,8 +66,8 @@ class TestVocab:
 
 class TestDatabase:
     def test_reloc_candidates_find_similar(self, voc, rng):
-        from corbslam_tpu.config import CapacityConfig
-        from corbslam_tpu.mapstate import mapstate as ms
+        from corbslam.config import CapacityConfig
+        from corbslam.mapstate import mapstate as ms
 
         cap = CapacityConfig(max_keyframes=16, max_map_points=512, max_features=64)
         m = ms.empty(cap)

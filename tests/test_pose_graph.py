@@ -4,8 +4,8 @@ circular trajectory — the exact scenario OptimizeEssentialGraph exists for."""
 import jax.numpy as jnp
 import numpy as np
 
-from corbslam_tpu.geometry import se3, sim3
-from corbslam_tpu.optim import pose_graph
+from corbslam.geometry import se3, sim3
+from corbslam.optim import pose_graph
 
 
 def build_ring(n=40, drift_per_step=0.02, rng=None):

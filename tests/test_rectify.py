@@ -7,8 +7,8 @@ corbslam_client/Examples/Stereo/stereo_euroc.cc.
 import numpy as np
 import jax.numpy as jnp
 
-from corbslam_tpu.geometry import camera as cam_mod
-from corbslam_tpu.geometry import rectify
+from corbslam.geometry import camera as cam_mod
+from corbslam.geometry import rectify
 
 
 def test_rectified_to_raw_inverse_consistency():
@@ -71,7 +71,7 @@ def test_euroc_maps_build_and_are_in_bounds():
 
 
 def test_tum_camera_has_distortion_and_frame_undistorts():
-    from corbslam_tpu.io import datasets
+    from corbslam.io import datasets
 
     cam = datasets.tum_camera(1)
     assert cam.dist[0] != 0.0

@@ -9,7 +9,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from corbslam_tpu.collab import shm_ring
+from corbslam.collab import shm_ring
 
 # NEVER fork from the pytest process: it has initialized XLA (8 CPU devices,
 # compiler thread pools), and forked children inheriting that state
@@ -81,7 +81,7 @@ def _ring_writer_proc():
 
 
 def _client_proc(session_dir, cid, out_q):
-    from corbslam_tpu.collab.shm_transport import ShmClientTransport
+    from corbslam.collab.shm_transport import ShmClientTransport
 
     t = ShmClientTransport(cid, session_dir, capacity=1 << 20)
     ok = t.call("echo", cid, {"x": np.arange(5, dtype=np.int32) * cid})
@@ -98,7 +98,7 @@ def _client_proc(session_dir, cid, out_q):
 
 class TestShmTransport:
     def test_call_ack_and_broadcast_across_processes(self):
-        from corbslam_tpu.collab.shm_transport import ShmServerTransport
+        from corbslam.collab.shm_transport import ShmServerTransport
 
         srv = ShmServerTransport(tempfile.mkdtemp(prefix="csr_t_"))
         seen = []

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.geometry import camera, se3, sim3
-from corbslam_tpu.solvers import pnp, sim3_solver
+from corbslam.geometry import camera, se3, sim3
+from corbslam.solvers import pnp, sim3_solver
 
 CAM = camera.Intrinsics.create(
     fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,

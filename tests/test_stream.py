@@ -5,7 +5,7 @@ import time
 
 import numpy as np
 
-from corbslam_tpu.io.stream import (
+from corbslam.io.stream import (
     ApproxSync, ImageStreamClient, ImageStreamServer,
 )
 

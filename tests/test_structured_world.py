@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu.config import (
+from corbslam.config import (
     CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
-from corbslam_tpu.frontend.tracking import StereoTracker, TrackState
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.io import synthetic, trajectory
+from corbslam.frontend.tracking import StereoTracker, TrackState
+from corbslam.geometry import camera, se3
+from corbslam.io import synthetic, trajectory
 
 CAM = camera.Intrinsics.create(
     fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=320.0 * 0.5,
@@ -61,7 +61,7 @@ class TestWorldGeometry:
         assert np.abs(a - b).mean() < 10.0  # ... but bounded
 
     def test_stereo_depth_recovered(self, world):
-        from corbslam_tpu.frontend import frame as frame_mod
+        from corbslam.frontend import frame as frame_mod
 
         Tcw = se3.identity()
         l, r = world.render_stereo(Tcw, frame=0)

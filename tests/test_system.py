@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from corbslam_tpu import system as system_mod
-from corbslam_tpu.config import CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.io import synthetic
-from corbslam_tpu.place import vocab as vocab_mod
+from corbslam import system as system_mod
+from corbslam.config import CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig
+from corbslam.geometry import camera, se3
+from corbslam.io import synthetic
+from corbslam.place import vocab as vocab_mod
 
 CAM = camera.Intrinsics.create(
     fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0, width=320, height=240
@@ -84,7 +84,7 @@ class TestSystemFacade:
     def test_keyframe_culling_activates(self, world):
         # A near-stationary camera spawns redundant keyframes -> culling
         # must invalidate some of them.
-        from corbslam_tpu.mapping import local_mapping
+        from corbslam.mapping import local_mapping
 
         client = system_mod.CorbslamClient(
             CAM, CFG.replace(
@@ -102,7 +102,7 @@ class TestSystemFacade:
 
 class TestRunnerApps:
     def test_run_client_synthetic(self, tmp_path, monkeypatch):
-        from corbslam_tpu.apps import run_client
+        from corbslam.apps import run_client
 
         out = tmp_path / "traj.txt"
         client = run_client.main([
@@ -129,7 +129,7 @@ class TestDatasetLoaders:
             self._write_pgm(sdir / "image_1" / f"{i:06d}.pgm", img)
         np.savetxt(sdir / "times.txt", np.arange(3) * 0.1)
 
-        from corbslam_tpu.io import datasets
+        from corbslam.io import datasets
 
         frames = datasets.load_kitti_stereo(str(tmp_path), 3)
         assert len(frames) == 3
@@ -152,7 +152,7 @@ class TestDatasetLoaders:
         (tmp_path / "rgb.txt").write_text("\n".join(rgb_lines))
         (tmp_path / "depth.txt").write_text("\n".join(d_lines))
 
-        from corbslam_tpu.io import datasets
+        from corbslam.io import datasets
 
         frames = datasets.load_tum_rgbd(str(tmp_path))
         assert len(frames) == 3
@@ -173,7 +173,7 @@ class TestDatasetLoaders:
             rows.append(f"{ns},{name}")
         (tmp_path / "mav0" / "cam0" / "data.csv").write_text("\n".join(rows))
 
-        from corbslam_tpu.io import datasets
+        from corbslam.io import datasets
 
         frames = datasets.load_euroc_stereo(str(tmp_path))
         assert len(frames) == 2

@@ -11,7 +11,7 @@ import time
 import numpy as np
 import pytest
 
-from corbslam_tpu.collab.socket_transport import (
+from corbslam.collab.socket_transport import (
     SocketClientTransport,
     SocketServerTransport,
 )

@@ -8,8 +8,8 @@ import zlib
 import jax.numpy as jnp
 import numpy as np
 
-from corbslam_tpu.apps.frame_drawer import FrameDrawer, save_png
-from corbslam_tpu.frontend.tracking import TrackState
+from corbslam.apps.frame_drawer import FrameDrawer, save_png
+from corbslam.frontend.tracking import TrackState
 
 
 def _stub_tracker(n_feat=32, h=120, w=160):
@@ -79,9 +79,9 @@ class TestLiveViewer:
         import time
         import urllib.request
 
-        from corbslam_tpu.apps.live_viewer import LiveViewer
-        from corbslam_tpu.config import CapacityConfig
-        from corbslam_tpu.mapstate import mapstate as ms
+        from corbslam.apps.live_viewer import LiveViewer
+        from corbslam.config import CapacityConfig
+        from corbslam.mapstate import mapstate as ms
 
         viewer = LiveViewer(port=0, map_render_hz=100.0)
         try:
@@ -104,7 +104,7 @@ class TestLiveViewer:
                     return r.read()
 
             page = get("")
-            assert b"corbslam_tpu live" in page
+            assert b"corbslam live" in page
             frame = get("frame.png")
             assert frame[:8] == b"\x89PNG\r\n\x1a\n"
             stats = json_mod.loads(get("stats.json"))

@@ -1,68 +1,21 @@
 """End-to-end loop-closure validation: a closed orbit inside the room world
-driven through CorbslamClient with loop closing + GBA enabled. Asserts the
-loop fires and improves ATE — the reference's KITTI-00 manual validation
-(ref: corbslam_client/src/LoopClosing.cc:404 CorrectLoop end-to-end effect),
-done hermetically on a synthetic world.
+driven through CorbslamClient with loop closing + GBA enabled
+(`corbslam.checks.closed_orbit`). Reports whether the loop fired and the ATE
+of the frames and of the corrected keyframes — the reference's KITTI-00
+manual validation (ref: corbslam_client/src/LoopClosing.cc:404 CorrectLoop
+end-to-end effect), done hermetically on a synthetic world. Runs on the
+default JAX platform.
 
 Run: python -u tools/loop_e2e.py [--frames N] [--step S] [--radius R]
-Prints one JSON line with loop stats + pre/post ATE.
+Prints one JSON line with loop stats + ATE.
 """
 
 import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-# CPU-only cache keyed by host fingerprint (corbslam_tpu/hostcache.py:
-# foreign XLA:CPU AOT entries segfault/SIGILL on load).
-from corbslam_tpu.hostcache import configure_cpu_cache
-
-configure_cpu_cache()
-import jax.numpy as jnp
-import numpy as np
-
-from corbslam_tpu.config import (
-    CapacityConfig, MappingConfig, OrbConfig, SlamConfig, TrackingConfig,
-)
-from corbslam_tpu.geometry import camera, se3
-from corbslam_tpu.io import synthetic, trajectory
-
-CAM = camera.Intrinsics.create(
-    fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=320.0 * 0.5,
-    width=320, height=240,
-)
-
-
-def build_cfg():
-    return SlamConfig(
-        orb=OrbConfig(n_features=512, n_levels=4, cell_size=12),
-        tracking=TrackingConfig(th_depth=40.0, max_frames_between_kf=10),
-        mapping=MappingConfig(local_ba_window=8, local_ba_iters=6),
-        capacity=CapacityConfig(
-            max_keyframes=256, max_map_points=32768, max_features=512,
-            local_window_kfs=8, local_window_mps=2048,
-        ),
-    )
-
-
-def orbit(n, radius, step):
-    """Camera orbiting inside the room looking outward; closes after
-    2*pi/step frames."""
-    poses = []
-    for i in range(n):
-        th = step * i
-        Twc = se3.compose(
-            se3.exp(jnp.asarray([0, 0, 0, 0.0, th, 0.0], jnp.float32)),
-            se3.from_Rt(jnp.eye(3), jnp.asarray([0.0, 0.0, -radius])),
-        )
-        poses.append(se3.inverse(Twc))
-    return poses
 
 
 def main():
@@ -74,90 +27,12 @@ def main():
                     help="frames past closure")
     args = ap.parse_args()
 
-    from corbslam_tpu import system as system_mod
-    from corbslam_tpu.frontend import frame as frame_mod
-    from corbslam_tpu.place import vocab as vocab_mod
+    from corbslam import checks, compile_cache
 
-    n_close = int(np.ceil(2 * np.pi / args.step))
-    n = args.frames or (n_close + args.extra)
-    cfg = build_cfg()
-    world = synthetic.MultiPlaneWorld.room(
-        CAM, half=14.0, height=3.0, noise_std=3.0, seed=2)
-    gt = orbit(n, args.radius, args.step)
-
-    # Vocabulary from a few renders (stands in for the pre-trained ORBvoc).
-    descs = []
-    for i in (0, n // 3, 2 * n // 3):
-        img, _ = world.render_stereo(gt[i], frame=i)
-        f = frame_mod.build_frame_mono(img, CAM, cfg.orb)
-        descs.append(np.asarray(f.desc)[np.asarray(f.fvalid)])
-    voc = vocab_mod.train(jnp.asarray(np.concatenate(descs)),
-                          n_words=1024, n_iters=6)
-
-    c = system_mod.CorbslamClient(
-        CAM, cfg, sensor="stereo", client_id=1, voc=voc,
-        enable_loop_closing=True, run_gba=True,
-    )
-    if c.loop_closer is not None:
-        c.loop_closer.debug_checks = True
-        c.loop_closer.dump_dir = "/tmp"
-        if c.loop_closer.gba_runner is not None:
-            c.loop_closer.gba_runner.synchronous = True
-
-    t0 = time.time()
-    loop_at = None
-    for i in range(n):
-        l, r = world.render_stereo(gt[i], frame=i)
-        c.track_stereo(l, r, timestamp=i * 0.1)
-        lc = c.loop_closer
-        if loop_at is None and lc is not None and lc.stats.n_loops_closed > 0:
-            loop_at = i
-            print(f"[loop] closed at frame {i} "
-                  f"(q={lc.stats.last_loop[0]}, c={lc.stats.last_loop[1]})",
-                  flush=True)
-    c.shutdown()
-    dt = time.time() - t0
-
-    est = np.asarray([np.asarray(se3.inverse(jnp.asarray(T)))
-                      for _, T in c.tracker.trajectory])
-    gtw = np.asarray([np.asarray(se3.inverse(T)) for T in gt])
-    # Pre-loop ATE: the drifted trajectory up to closure; post-loop ATE: the
-    # final keyframe poses after loop correction + GBA (the reference's
-    # "trajectory after CorrectLoop" comparison).
-    ate_raw = trajectory.ate_rmse(est, gtw, align=True)
-
-    # Post-correction keyframe ATE: keyframe poses live in the map and were
-    # moved by correct_window + essential graph + GBA.
-    m = c.tracker.map
-    kf_valid = np.asarray(m.kf.valid)
-    kf_fid = np.asarray(m.kf.frame_id)[kf_valid]
-    kf_Tcw = np.asarray(m.kf.Tcw)[kf_valid]
-    sel = (kf_fid < len(gtw)) & np.isfinite(kf_Tcw).all(axis=(1, 2))
-    n_nonfinite = int((~np.isfinite(kf_Tcw).all(axis=(1, 2))).sum())
-    est_kf = np.asarray([np.asarray(se3.inverse(jnp.asarray(T)))
-                         for T in kf_Tcw[sel]])
-    gt_kf = gtw[kf_fid[sel]]
-    ate_kf = (trajectory.ate_rmse(est_kf, gt_kf, align=True)
-              if sel.sum() >= 3 else float("nan"))
-
-    lc = c.loop_closer
-    out = {
-        "frames": n,
-        "wall_s": round(dt, 1),
-        "n_keyframes": int(c.tracker.stats.n_keyframes),
-        "loop_detections": lc.stats.n_detections if lc else 0,
-        "sim3_attempts": lc.stats.n_sim3_attempts if lc else 0,
-        "loops_closed": lc.stats.n_loops_closed if lc else 0,
-        "loop_at_frame": loop_at,
-        "ate_rmse_frames": round(float(ate_raw), 4),
-        "ate_rmse_keyframes_post": round(float(ate_kf), 4),
-        "nonfinite_kf_poses": n_nonfinite,
-        "states": {
-            s.name: sum(1 for x in c.tracker.frame_states if x == s)
-            for s in set(c.tracker.frame_states)
-        },
-        "sim3_log_tail": lc.stats.sim3_log[-16:] if lc else [],
-    }
+    compile_cache.configure()
+    out = checks.closed_orbit(step=args.step, radius=args.radius,
+                              extra=args.extra, frames=args.frames,
+                              log=lambda s: print(s, file=sys.stderr))
     print(json.dumps(out))
 
 

@@ -3,7 +3,7 @@ fusion server whose global BA shards over a jax.distributed mesh spanning
 TWO processes (VERDICT r4 missing #5).
 
 This composes the two halves proven separately in r4:
-  - `corbslam_tpu.apps.run_collab_mp` — multi-process client/server
+  - `corbslam.apps.run_collab_mp` — multi-process client/server
     collaboration over the socket transport (the reference's roscore + N
     machines, corbslam_server/src/main.cpp:49-65);
   - `tools/multihost_gba.py` — the camera-sharded dense LM loop running
@@ -38,9 +38,9 @@ def worker(args):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from corbslam_tpu.hostcache import configure_cpu_cache
+    from corbslam import compile_cache
 
-    configure_cpu_cache()
+    compile_cache.configure()
     jax.distributed.initialize(
         coordinator_address=args.coordinator,
         num_processes=2,
@@ -51,11 +51,11 @@ def worker(args):
     from jax.experimental import multihost_utils as mhu
     from jax.sharding import Mesh
 
-    from corbslam_tpu.config import CapacityConfig, OrbConfig, SlamConfig
-    from corbslam_tpu.geometry import camera
-    from corbslam_tpu.loop import gba as gba_mod
-    from corbslam_tpu.optim import ba_dense
-    from corbslam_tpu.parallel import distributed_ba as dba
+    from corbslam.config import CapacityConfig, OrbConfig, SlamConfig
+    from corbslam.geometry import camera
+    from corbslam.loop import gba as gba_mod
+    from corbslam.optim import ba_dense
+    from corbslam.parallel import distributed_ba as dba
 
     cam = camera.Intrinsics.create(
         fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0,
@@ -73,9 +73,9 @@ def worker(args):
     fleet_stats = {}
     if args.proc == 0:
         # ---- run the collaboration fleet (server in THIS process) ------
-        from corbslam_tpu.collab.server import MapFusionServer
-        from corbslam_tpu.collab.socket_transport import SocketServerTransport
-        from corbslam_tpu.place import vocab as vocab_mod
+        from corbslam.collab.server import MapFusionServer
+        from corbslam.collab.socket_transport import SocketServerTransport
+        from corbslam.place import vocab as vocab_mod
 
         voc = vocab_mod.load_any(args.vocab)
         transport = SocketServerTransport()
@@ -87,7 +87,7 @@ def worker(args):
         for cid in range(1, args.clients + 1):
             out = os.path.join(tmp, f"client{cid}.json")
             procs.append((subprocess.Popen(
-                [sys.executable, "-m", "corbslam_tpu.apps.run_collab_mp",
+                [sys.executable, "-m", "corbslam.apps.run_collab_mp",
                  "--role", "client", "--client-id", str(cid),
                  "--frames", str(args.frames), "--port", str(port),
                  "--transport", "tcp", "--vocab", args.vocab,

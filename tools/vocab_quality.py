@@ -16,11 +16,8 @@ import argparse
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-
 import numpy as np
 
 
@@ -41,21 +38,16 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-        # CPU runs must NOT read the TPU cache: XLA:CPU AOT entries embed
-        # the compile host's features and this container migrates across
-        # machine types (hostcache.py).
-        from corbslam_tpu.hostcache import configure_cpu_cache
+    from corbslam import compile_cache
 
-        configure_cpu_cache()
-    else:
-        jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
+    compile_cache.configure()
     import jax.numpy as jnp
 
-    from corbslam_tpu.config import CapacityConfig, OrbConfig, SlamConfig
-    from corbslam_tpu.frontend import frame as frame_mod
-    from corbslam_tpu.geometry import camera, se3
-    from corbslam_tpu.io import synthetic
-    from corbslam_tpu.place import vocab as vocab_mod
+    from corbslam.config import CapacityConfig, OrbConfig, SlamConfig
+    from corbslam.frontend import frame as frame_mod
+    from corbslam.geometry import camera, se3
+    from corbslam.io import synthetic
+    from corbslam.place import vocab as vocab_mod
 
     cam = camera.Intrinsics.create(
         fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0,
@@ -121,9 +113,9 @@ def main():
     gt_near = ang_dist(q_th, db_th) <= tol          # [Q, N] correct pairs
     gt_near_h = ang_dist(h_th, db_th) <= tol
 
-    from corbslam_tpu.place import database as db_mod
+    from corbslam.place import database as db_mod
 
-    def evaluate(voc, name, t_train):
+    def evaluate(voc, name):
         db_bow = vocab_mod.transform_many(
             voc, jnp.asarray(db_desc), jnp.asarray(db_valid))
 
@@ -173,30 +165,28 @@ def main():
             "held_out_recall_at_5": round(float(h5), 4),
             "held_out_margin": round(hmargin, 4),
             "held_out_recall_at_1_verified": round(float(hv), 4),
-            "train_wall_s": round(t_train, 1),
         }
         results[name] = res
         print(json.dumps(res), flush=True)
 
     results = {}
     for W in args.sizes:
-        t0 = time.time()
         if W <= 8192:
             voc = vocab_mod.train(jnp.asarray(train_corpus), n_words=W,
                                   n_iters=8)
         else:
             voc = vocab_mod.train_chunked(train_corpus, n_words=W,
                                           n_iters=8, chunk=16384)
-        evaluate(voc, str(W), time.time() - t0)
+        evaluate(voc, str(W))
 
     # The shipped artifact: trained on UNRELATED worlds (apps/train_vocab),
     # so the room world is fully held out for it — the cross-world
     # generalization evidence the reference gets for free from ORBvoc.
     art = vocab_mod.load_default()
     if art is not None:
-        evaluate(art, "artifact32k", 0.0)
+        evaluate(art, "artifact32k")
     for p in args.artifacts:
-        evaluate(vocab_mod.load_any(p), os.path.basename(p), 0.0)
+        evaluate(vocab_mod.load_any(p), os.path.basename(p))
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(here, "VOCAB_QUALITY.json"), "w") as f:

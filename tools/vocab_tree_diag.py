@@ -25,17 +25,17 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from corbslam_tpu.hostcache import configure_cpu_cache
+    from corbslam import compile_cache
 
-    configure_cpu_cache()
+    compile_cache.configure()
     import jax.numpy as jnp
 
-    from corbslam_tpu.config import OrbConfig, SlamConfig
-    from corbslam_tpu.frontend import frame as frame_mod
-    from corbslam_tpu.geometry import camera, se3
-    from corbslam_tpu.io import synthetic
-    from corbslam_tpu.ops import descriptors as D
-    from corbslam_tpu.place import vocab as vocab_mod
+    from corbslam.config import OrbConfig, SlamConfig
+    from corbslam.frontend import frame as frame_mod
+    from corbslam.geometry import camera, se3
+    from corbslam.io import synthetic
+    from corbslam.ops import descriptors as D
+    from corbslam.place import vocab as vocab_mod
 
     cam = camera.Intrinsics.create(
         fx=320.0, fy=320.0, cx=160.0, cy=120.0, bf=160.0,
